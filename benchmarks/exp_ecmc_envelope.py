@@ -9,7 +9,7 @@ segment WIDTH (horizon / grid_size).  This sweep measures acceptance and
 events/s over (tmax, grid_size) to pick defaults that hit >= 0.95
 acceptance without losing throughput.
 
-Run on TPU; prints one JSON line per configuration.
+Run on the GPU; prints one JSON line per configuration.
 """
 
 from __future__ import annotations
@@ -31,12 +31,9 @@ def _log(msg):
 def main():
     import jax
 
-    try:
-        from pdmpflux_tpu.utils.profiling import enable_persistent_cache
+    from pdmpflux_tpu.utils.profiling import enable_persistent_cache
 
-        enable_persistent_cache("/tmp/pdmpflux_xla_cache")
-    except Exception:
-        pass
+    enable_persistent_cache()
     import jax.numpy as jnp
 
     import pdmpflux_tpu as pf

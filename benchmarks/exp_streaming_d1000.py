@@ -53,12 +53,9 @@ def main():
 
     import jax
 
-    try:
-        from pdmpflux_tpu.utils.profiling import enable_persistent_cache
+    from pdmpflux_tpu.utils.profiling import enable_persistent_cache
 
-        enable_persistent_cache("/tmp/pdmpflux_xla_cache")
-    except Exception:
-        pass
+    enable_persistent_cache()
     import jax.numpy as jnp
 
     import pdmpflux_tpu as pf

@@ -1,27 +1,19 @@
 """Scaling sweep (BASELINE.md last row: "1 chip -> 1 host -> N hosts").
 
-Two axes, honestly labeled for the hardware actually available:
+Two axes, on the GPUs of one host (the script refuses any other device):
 
-1. **Chain-batch scaling on the real device** (the per-chip axis): flagship
-   config (ZigZag, 10-d Gaussian) at B = 1 .. 8192, events/s and parallel
-   efficiency vs B=1.  This is the axis that matters on TPU — PDMP chains
-   are embarrassingly parallel, so per-chip batch saturation IS the
-   single-chip scaling story.
+1. **Chain-batch scaling** (the per-device axis): flagship config
+   (ZigZag, 10-d Gaussian) at B = 1 .. 8192, events/s and parallel
+   efficiency vs B=1 — PDMP chains are embarrassingly parallel, so batch
+   saturation is the single-device scaling story.
 
 2. **Device-mesh scaling** via ``sample_skeleton_sharded`` over a
-   ``chains`` mesh axis at n = 1, 2, 4, 8 devices (real devices when a
-   multi-chip slice is attached; the 8-virtual-device CPU mesh otherwise —
-   the standard JAX fake-device trick, marked ``platform: "cpu"`` in the
-   output so nobody mistakes it for silicon).  Honesty note for the CPU
-   rows: 8 virtual devices SHARE one physical CPU, so their wall-clock
-   "weak-scaling efficiency" measures host-core contention (8 independent
-   event loops time-slicing one chip trend toward 1/n), not ICI scaling.
-   The linear-scaling claim for real multi-chip meshes is structural and
-   compile-checked instead: the per-device fill's HLO contains NO
-   cross-device collectives
-   (tests/test_parallel.py::test_sharded_stream_fill_has_no_collectives),
-   and a 1-real-chip mesh runs at the unsharded per-chip rate (the
-   ``device_mesh``/``tpu`` row vs ``bench.py``).
+   ``chains`` mesh axis at n = 1, 2, 4, 8 devices (as many as are
+   attached).  The per-device fill's HLO contains no cross-device
+   collectives (tests/test_parallel.py::
+   test_sharded_stream_fill_has_no_collectives), so the weak-scaling
+   efficiency measures what the host and the devices add, not
+   communication.
 
 Writes ``benchmarks/scaling_results.json``.
 """
@@ -47,8 +39,7 @@ def batch_scaling(pf, jnp, jax, n_ev=1024):
     for B in (1, 64, 512, 2048, 8192):
         sampler = _flagship(pf)
         x0, v0 = np.zeros((B, 10)), np.ones((B, 10))
-        kw = dict(dtype=jnp.float32,
-                  backend="auto" if jax.devices()[0].platform == "tpu" else "xla")
+        kw = dict(dtype=jnp.float32)
         pf.sample_skeleton(sampler, n_ev, x0, v0, seed=0, **kw)  # compile
         # second warmup compiles the ratio-adapted fill geometry (see
         # api._sample_skeleton_events_stream) so the timed run is clean
@@ -59,6 +50,7 @@ def batch_scaling(pf, jnp, jax, n_ev=1024):
         wall = time.perf_counter() - t0
         rows.append({
             "axis": "chain_batch", "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind,
             "B": B, "events_per_chain": n_ev,
             "events_per_sec": round(total / wall, 1),
             "wall_s": round(wall, 3),
@@ -94,6 +86,7 @@ def mesh_scaling(pf, jnp, jax, n_ev=512, per_dev=256, n_list=(1, 2, 4, 8)):
         wall = time.perf_counter() - t0
         rows.append({
             "axis": "device_mesh", "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind,
             "n_devices": n, "chains_per_device": per_dev,
             "events_per_chain": n_ev,
             "events_per_sec": round(total / wall, 1),
@@ -114,23 +107,17 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--axis", choices=("batch", "mesh", "both"),
                     default="both")
-    ap.add_argument("--cpu-mesh", action="store_true",
-                    help="force the 8-virtual-device CPU mesh (the standard "
-                         "JAX fake-device trick; rows are labeled "
-                         "platform='cpu')")
     ap.add_argument("--per-dev", type=int, default=256,
                     help="chains per device for the mesh axis")
     ap.add_argument("--mesh-n-ev", type=int, default=512,
                     help="events per chain for the mesh axis")
     args = ap.parse_args()
 
-    if args.cpu_mesh:
-        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                                   + " --xla_force_host_platform_device_count=8")
     import jax
 
-    if args.cpu_mesh:
-        jax.config.update("jax_platforms", "cpu")
+    if jax.devices()[0].platform != "gpu":
+        print("scaling: needs an NVIDIA GPU", file=sys.stderr)
+        sys.exit(2)
     import jax.numpy as jnp
 
     import pdmpflux_tpu as pf
@@ -144,9 +131,7 @@ def main():
 
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "scaling_results.json")
-    # Merge with prior rows: a rerun of one axis/platform updates only its
-    # own rows (the TPU chain-batch rows and the CPU mesh rows are produced
-    # by separate invocations).
+    # Merge with prior rows: a rerun of one axis updates only its own rows.
     def key(r):
         return (r["axis"], r["platform"], r.get("B"), r.get("n_devices"))
 

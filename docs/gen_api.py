@@ -44,9 +44,8 @@ SECTIONS = [
      ["save_checkpoint", "load_checkpoint"]),
     ("Profiling", "pdmpflux_tpu.utils.profiling",
      ["timed", "trace", "annotate", "enable_persistent_cache"]),
-    ("Pallas kernel driver", "pdmpflux_tpu.ops.pallas.driver",
-     ["supports_pallas", "kernel_kind", "pick_launch",
-      "make_pallas_stream_runner", "make_pallas_fixed_runner"]),
+    ("Execution path", "pdmpflux_tpu.core.capability",
+     ["ExecPath", "path_for", "resolve"]),
     ("Engine", "pdmpflux_tpu.core.engine",
      ["make_transition", "make_stream_runner", "make_fixed_event_runner",
       "make_horizon_runner", "compact_stream_rows"]),

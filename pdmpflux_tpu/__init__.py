@@ -1,8 +1,8 @@
-"""pdmpflux_tpu — a TPU-native Piecewise-Deterministic Markov Process
-sampling framework (JAX / XLA / Pallas).
+"""pdmpflux_tpu — a Piecewise-Deterministic Markov Process sampling
+framework in JAX / XLA, run on NVIDIA GPUs.
 
-Built from scratch with the capabilities of PDMPFlux.jl (reference mounted at
-``/root/reference``; see SURVEY.md), re-architected for TPU hardware:
+Built from scratch with the capabilities of PDMPFlux.jl (see SURVEY.md),
+re-architected for batched accelerators:
 
 * one flat jit-compiled transition state machine instead of nested
   interpreter loops (``core/engine.py``);

@@ -1,6 +1,6 @@
 """Thinning-envelope construction and inversion (Andral & Kamatani 2024, §4).
 
-TPU-native reimplementation of ``/root/reference/src/UpperBound.jl``:
+JAX reimplementation of the reference's ``src/UpperBound.jl``:
 
 * the grid envelope is pure, fixed-shape tensor math (no Python loops),
   batched over the grid axis and — via ``jax.vmap`` at the call site — over

@@ -1,4 +1,4 @@
-"""Core data structures of the TPU-native PDMP engine.
+"""Core data structures of the PDMP engine.
 
 Everything is an immutable pytree of arrays (``typing.NamedTuple``) so that it
 can flow through ``jax.jit`` / ``jax.vmap`` / ``jax.lax.while_loop`` and be
@@ -73,7 +73,7 @@ class PDMPState(NamedTuple):
     ``jax.vmap``).
 
     Time accumulation uses Kahan compensation (``t`` + ``t_comp``) so that
-    float32 runs on TPU keep event-clock accuracy over millions of events.
+    float32 runs keep event-clock accuracy over millions of events.
     """
 
     x: Array            # (d,) position

@@ -40,6 +40,13 @@ from ..core import bounds
 from ..core.types import MODE_FRESH, ERROR_RING_SIZE, PDMPState
 
 
+def dot(a, b):
+    """Inner product at full float32 precision: a GPU may otherwise run a
+    vmapped f32 ``jnp.dot`` on TF32 tensor cores (~3 decimal digits), which
+    would reach the thinning ratio and the velocity jumps."""
+    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _as_key(seed_or_key):
     if seed_or_key is None:
         return jax.random.key(0)

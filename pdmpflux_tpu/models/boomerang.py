@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.flows import boomerang_flow
-from .base import PDMP, resolve_potential
+from .base import PDMP, dot, resolve_potential
 
 
 class Boomerang(PDMP):
@@ -63,7 +63,7 @@ class Boomerang(PDMP):
 
     def rate(self, x, v, t):
         xt, vt = self.flow(x, v, t)
-        return jnp.maximum(0.0, jnp.dot(self._grad_eff(xt), vt)) + self.refresh_rate
+        return jnp.maximum(0.0, dot(self._grad_eff(xt), vt)) + self.refresh_rate
 
     def _signed_rate(self, x, v, t):
         # No refresh term: the envelope builder adds refresh_rate once after
@@ -72,11 +72,11 @@ class Boomerang(PDMP):
         # UpperBound.jl:131).  On a pure-Gaussian target (grad_eff == 0)
         # this lifts thinning acceptance from exactly 0.5 to ~1.
         xt, vt = self.flow(x, v, t)
-        return jnp.dot(self._grad_eff(xt), vt)
+        return dot(self._grad_eff(xt), vt)
 
     def velocity_jump(self, x, v, key, is_active):
         g = self._grad_eff(x)
-        bounce_rate = jnp.maximum(0.0, jnp.dot(g, v))
+        bounce_rate = jnp.maximum(0.0, dot(g, v))
         denom = bounce_rate + self.refresh_rate
         bounce_prob = jnp.where(denom > 0, bounce_rate / jnp.where(denom > 0, denom, 1.0), 0.0)
         k_u, k_n = jax.random.split(key)
@@ -84,7 +84,7 @@ class Boomerang(PDMP):
 
         nrm = jnp.linalg.norm(g)
         e = g / jnp.where(nrm > 0, nrm, 1.0)
-        v_reflect = v - 2.0 * jnp.dot(v, e) * e
+        v_reflect = v - 2.0 * dot(v, e) * e
         # Full refresh draws an *un-normalized* Gaussian velocity (:65) —
         # correct for the Boomerang's Gaussian velocity marginal.
         fresh = jax.random.normal(k_n, v.shape, v.dtype)

@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.flows import linear_flow
-from .base import PDMP, resolve_potential
+from .base import PDMP, dot, resolve_potential
 
 
 class BPS(PDMP):
@@ -56,7 +56,7 @@ class BPS(PDMP):
 
     def rate(self, x, v, t):
         xt, vt = self.flow(x, v, t)
-        return jnp.maximum(0.0, jnp.dot(self.grad_U(xt), vt)) + self.refresh_rate
+        return jnp.maximum(0.0, dot(self.grad_U(xt), vt)) + self.refresh_rate
 
     def _signed_rate(self, x, v, t):
         # No refresh term here: the signed-grid envelope builder adds
@@ -67,19 +67,19 @@ class BPS(PDMP):
         # again, UpperBound.jl:131) which caps acceptance at l/(l+r) —
         # envelope slack only, law identical (documented deviation).
         xt, vt = self.flow(x, v, t)
-        return jnp.dot(self.grad_U(xt), vt)
+        return dot(self.grad_U(xt), vt)
 
     def velocity_jump(self, x, v, key, is_active):
         g = self.grad_U(x)
-        bounce_rate = jnp.maximum(0.0, jnp.dot(g, v))
+        bounce_rate = jnp.maximum(0.0, dot(g, v))
         denom = bounce_rate + self.refresh_rate
         # 0/0 -> prob 0 -> refresh branch, matching Julia's u < NaN == false.
         bounce_prob = jnp.where(denom > 0, bounce_rate / jnp.where(denom > 0, denom, 1.0), 0.0)
         k_u, k_n = jax.random.split(key)
         u = jax.random.uniform(k_u, dtype=x.dtype)
 
-        gg = jnp.dot(g, g)
-        scale = 2.0 * jnp.dot(v, g) / jnp.where(gg > 0, gg, 1.0)
+        gg = dot(g, g)
+        scale = 2.0 * dot(v, g) / jnp.where(gg > 0, gg, 1.0)
         v_reflect = jnp.where(gg > 0, v - scale * g, v)
 
         fresh = jax.random.normal(k_n, v.shape, v.dtype)

@@ -23,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.flows import linear_flow
-from .base import PDMP, resolve_potential
+from .base import PDMP, dot, resolve_potential
 
 TOLERANCE = 1e-10
 MIN_DIMENSION = 2
@@ -38,16 +38,14 @@ class ForwardECMC(PDMP):
     """Defaults as in ``ForwardEventChainMonteCarlo.jl:301-303``, except
     ``grid_size=20`` (the reference uses 10).
 
-    Measured on the 10-d Gaussian benchmark (TPU v5e, f32,
-    ``benchmarks/ecmc_envelope_sweep.json``): the scalar signed envelope's
+    On the 10-d Gaussian benchmark (f32) the scalar signed envelope's
     slack is segment-width-limited, so doubling the grid raises thinning
-    acceptance 0.889 -> 0.928 AND events/s (+8%: fewer rejected proposals
-    outweigh the extra envelope evaluations); ESS/s improves ~35% over
-    grid 40 (acceptance 0.956), which pays more envelope work than its
-    rejections save.  The initial ``tmax`` is irrelevant to acceptance —
-    the adaptive horizon self-tunes within a few hundred events.  The
-    sampled law is identical at any grid (envelope tightness only shifts
-    acceptance statistics)."""
+    acceptance 0.889 -> 0.928; grid 40 reaches 0.956 but pays more
+    envelope work than its rejections save.  The speed trade-off behind
+    the default has not been re-measured on a GPU (see ROADMAP.md).  The
+    initial ``tmax`` is irrelevant to acceptance — the adaptive horizon
+    self-tunes within a few hundred events.  The sampled law is identical
+    at any grid (envelope tightness only shifts acceptance statistics)."""
 
     def __init__(
         self,
@@ -99,11 +97,11 @@ class ForwardECMC(PDMP):
 
     def rate(self, x, v, t):
         xt, vt = self.flow(x, v, t)
-        return jnp.maximum(0.0, jnp.dot(self.grad_U(xt), vt))
+        return jnp.maximum(0.0, dot(self.grad_U(xt), vt))
 
     def _signed_rate(self, x, v, t):
         xt, vt = self.flow(x, v, t)
-        return jnp.dot(self.grad_U(xt), vt)
+        return dot(self.grad_U(xt), vt)
 
     # -- jump helpers -------------------------------------------------------
     def _orthogonal_switch(self, v_o, n, key, dtype):
@@ -111,13 +109,13 @@ class ForwardECMC(PDMP):
         the orthogonal complement of n."""
         k_g, k_theta = jax.random.split(key)
         g = jax.random.normal(k_g, (2,) + n.shape, dtype)
-        g1 = g[0] - jnp.dot(g[0], n) * n
-        g2 = g[1] - jnp.dot(g[1], n) * n
+        g1 = g[0] - dot(g[0], n) * n
+        g2 = g[1] - dot(g[1], n) * n
         e1, _ = _normalize(g1)
-        e2 = g2 - jnp.dot(g2, e1) * e1
+        e2 = g2 - dot(g2, e1) * e1
         e2, _ = _normalize(e2)
-        c1 = jnp.dot(v_o, e1)
-        c2 = jnp.dot(v_o, e2)
+        c1 = dot(v_o, e1)
+        c2 = dot(v_o, e2)
         v_r = v_o - c1 * e1 - c2 * e2
         v_new = v_r + e2 * c1 + e1 * c2
         if self.ran_p:
@@ -125,7 +123,7 @@ class ForwardECMC(PDMP):
             ct, st = jnp.cos(theta), jnp.sin(theta)
             v_new = v_r + (ct * e1 + st * e2) * c1 + (st * e1 - ct * e2) * c2
         if self.positive:
-            s = jnp.sign(jnp.dot(v_o, v_new))
+            s = jnp.sign(dot(v_o, v_new))
             v_new = v_new * jnp.where(s == 0, 1.0, s)
         return v_new
 
@@ -133,7 +131,7 @@ class ForwardECMC(PDMP):
         """Full orthogonal refresh (:105-113)."""
         g = jax.random.normal(key, n.shape, dtype)
         g, _ = _normalize(g)
-        return g - jnp.dot(g, n) * n
+        return g - dot(g, n) * n
 
     def velocity_jump(self, x, v, key, is_active):
         dtype = x.dtype
@@ -152,12 +150,12 @@ class ForwardECMC(PDMP):
         n, ng = _normalize(g)
         n = jnp.where(ng > 0, n, jnp.zeros_like(n))
 
-        v_p = jnp.dot(v, n) * n
+        v_p = dot(v, n) * n
         v_o = v - v_p
         # degenerate orthogonal component regeneration (:159-162)
         deg = jnp.linalg.norm(v_o) < TOLERANCE
         fresh_o = jax.random.normal(k_deg, v.shape, dtype)
-        fresh_o = fresh_o - jnp.dot(fresh_o, n) * n
+        fresh_o = fresh_o - dot(fresh_o, n) * n
         v_o = jnp.where(deg, fresh_o, v_o)
 
         if self.switch:

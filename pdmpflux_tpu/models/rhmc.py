@@ -32,21 +32,19 @@ def _auto_horizon(refresh_rate: float, step_size: float,
     the SLOWEST lane's proposal, and with an ``Exp(refresh_rate)`` proposal
     truncated at the horizon the batch maximum approaches the horizon itself
     (~``tmax / h`` steps per transition for every lane, vs a mean event
-    needing ``1 / (refresh_rate * h)``) — the measured 49x batch leverage of
-    VERDICT r4 weak item 3, vs 132-3,421x for the rest of the family.
+    needing ``1 / (refresh_rate * h)``).
 
     A *short* horizon caps each transition's lockstep cost at ``T / h``
     steps while keeping the per-event law identical (the horizon only
     segments the constant Poisson clock; horizon moves integrate the same
     flow they would have integrated inside a longer proposal).  Cost per
     event ``(T / h + c) / (1 - exp(-lam T))`` — ``c`` transition overheads
-    in Verlet-step units — is minimized on a coarse grid here.  ``c`` is
-    calibrated on TPU v5e (B=512, 10-d Gaussian, refresh 1.0, h=0.05):
-    the measured throughput peak sits at ``lam * T ~ 1`` (3.16M events/s,
-    vs 1.52M at the reference's fixed T=10 and 1.71M at T=0.25), which
-    back-solves to ``c ~ 14`` — each transition's bound/RNG/state
-    machinery costs about fourteen Verlet gradient steps.  Explicit
-    ``tmax`` (including the reference's 10.0) is honored unchanged.
+    in Verlet-step units — is minimized on a coarse grid here.  The
+    default ``c ~ 14`` puts the optimum at ``lam * T ~ 1``: each
+    transition's bound/RNG/state machinery is taken to cost about fourteen
+    Verlet gradient steps (B=512, 10-d Gaussian, refresh 1.0, h=0.05; not
+    yet re-measured on a GPU, see ROADMAP.md).  Explicit ``tmax``
+    (including the reference's 10.0) is honored unchanged.
     """
     lam, h = float(refresh_rate), float(step_size)
     best_T, best_cost = 1.0 / lam, float("inf")

@@ -23,8 +23,7 @@ class SpeedUpZigZag(ZigZag):
         self._suzz_flow = make_suzz_flow(dim)
 
     def _grad_eff(self, x):
-        # jnp.sum(x * x), not jnp.dot: this map runs inside the fused
-        # Pallas kernel, where a vmapped 1-D dot fails to lower (see
+        # jnp.sum(x * x), not jnp.dot: full f32 precision on a GPU (see
         # ops/flows.py make_suzz_flow note)
         s = jnp.sqrt(1.0 + jnp.sum(x * x))
         return s * self.grad_U(x) - x / s

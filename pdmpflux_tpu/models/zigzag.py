@@ -1,6 +1,6 @@
 """Zig-Zag sampler (and its AD-from-potential constructor).
 
-TPU-native counterpart of ``/root/reference/src/Samplers/ZigZagSamplers.jl``:
+JAX counterpart of the reference's ``src/Samplers/ZigZagSamplers.jl``:
 linear flow, per-coordinate rates ``max(0, dU_i(x_t) v_i)``, and a single
 coordinate flip at events, sampled proportionally to the per-coordinate
 rates (ZigZagSamplers.jl:101-107).

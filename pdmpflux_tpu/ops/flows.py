@@ -37,8 +37,8 @@ def make_suzz_flow(dim: int):
 
     def flow(x, v, t):
         # sums spelled elementwise (not jnp.dot): a vmapped 1-D dot becomes
-        # a dot_general whose dimension attribute Mosaic cannot serialize
-        # inside the fused Pallas kernel; mul+sum lowers as a clean reduce
+        # a dot_general that a GPU may run on TF32 tensor cores; mul+sum
+        # stays a full-precision f32 reduce
         y = x - v[0] * x[0] * v
         c = v[0] * jnp.sum(y * v)
         a = (1.0 + jnp.sum(y * y)) / dim - (c * c) / (dim * dim)

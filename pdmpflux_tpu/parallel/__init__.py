@@ -1,6 +1,6 @@
 """Scale-out layer: device meshes, sharded chain drivers, multi-host init,
-checkpointing (SURVEY.md §2 parallelism table — all absent in the reference,
-required for the TPU build)."""
+checkpointing (SURVEY.md §2 parallelism table — all absent in the
+reference)."""
 
 from .mesh import CHAIN_AXIS, DIM_AXIS, chain_sharding, make_mesh
 from .sharded import (

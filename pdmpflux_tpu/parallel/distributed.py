@@ -1,9 +1,9 @@
 """Multi-host initialization and cross-host reductions.
 
-The reference has no distributed layer at all (SURVEY.md §2).  Pod-scale
+The reference has no distributed layer at all (SURVEY.md §2).  Multi-host
 runs use ``jax.distributed.initialize`` to form the process group, a global
-mesh over all pod devices (ICI within a slice, DCN across slices), and the
-same ``shard_map`` chain drivers — chain simulation requires zero
+mesh over all devices of every host, and the same ``shard_map`` chain
+drivers — chain simulation requires zero
 communication, so scaling is linear by construction; only diagnostics
 reductions cross hosts.
 """

@@ -1,10 +1,10 @@
-"""Device-mesh helpers for pod-scale PDMP sampling.
+"""Device-mesh helpers for multi-device PDMP sampling.
 
 The reference is strictly single-process (SURVEY.md §2: no parallel or
-distributed layer exists).  The TPU-native scaling axes are:
+distributed layer exists).  The scaling axes are:
 
 * ``chains`` — the primary axis: independent PDMP chains are embarrassingly
-  parallel, so they shard over ICI/DCN with zero communication during
+  parallel, so they shard over devices with zero communication during
   simulation (collectives appear only in diagnostics reductions);
 * ``dim``   — optional tensor-parallel axis for very large state dimensions
   (e.g. the dim-1000 sticky configuration): positions/velocities shard over

@@ -3,15 +3,15 @@
 The reference has no profiler; its only instrumentation is the per-event
 counter set stored in the history (``src/Composites.jl:138-149``), which this
 framework keeps as batched skeleton fields (``ar``, ``rejected``,
-``errored_bound``, ``hitting_horizon``).  On TPU the missing piece is *trace*
-visibility — where device time goes inside the fused kernel / stream runner —
-and *compile-aware* benchmarking, because the first call to any jitted driver
-pays a 20-40 s XLA compile that must never be folded into a throughput number.
+``errored_bound``, ``hitting_horizon``).  The missing pieces are *trace*
+visibility — where device time goes inside the stream runner — and
+*compile-aware* benchmarking, because the first call to any jitted driver
+pays an XLA compile that must never be folded into a throughput number.
 
-Three tools:
+Four tools:
 
 * :func:`trace` — context manager around ``jax.profiler.trace``; writes a
-  TensorBoard-loadable trace (with TPU device timelines) to ``logdir``.
+  TensorBoard-loadable trace (with device timelines) to ``logdir``.
 * :func:`annotate` — named ``TraceAnnotation`` so sampler phases (bound
   build, thinning, recording) show up as spans inside the trace.
 * :func:`timed` — compile-cache-aware timing harness: measures the first
@@ -19,12 +19,16 @@ Three tools:
   ``block_until_ready`` on every output leaf.  ``bench.py`` and the baseline
   sweep report steady-state numbers only; this helper makes that split
   reusable and explicit.
+* :func:`enable_persistent_cache` — XLA's persistent compilation cache at
+  ``JAX_COMPILATION_CACHE_DIR`` or ``<checkout>/.jax_cache``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+from pathlib import Path
 
 import jax
 
@@ -96,10 +100,19 @@ def timed(fn, *args, repeats: int = 3, **kwargs):
     }
 
 
-def enable_persistent_cache(path: str) -> None:
-    """Point XLA's persistent compilation cache at ``path`` so repeated
-    benchmark processes skip recompiles (cuts the 20-40 s first-call cost
-    to cache-hit milliseconds on TPU)."""
-    from jax.experimental.compilation_cache import compilation_cache
+CHECKOUT_CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 
-    compilation_cache.set_cache_dir(path)
+
+def enable_persistent_cache() -> str:
+    """Turn on XLA's persistent compilation cache so repeated processes
+    skip recompiles; returns the cache directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    nothing is changed.  Otherwise the cache goes to the fixed
+    ``<checkout>/.jax_cache`` (the path is part of what a later process
+    must find again, so it never moves)."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR", "")
+    if env:
+        return env
+    jax.config.update("jax_compilation_cache_dir", str(CHECKOUT_CACHE_DIR))
+    return str(CHECKOUT_CACHE_DIR)

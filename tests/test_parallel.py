@@ -64,12 +64,12 @@ def test_sharded_matches_single_device(sampler):
     )
 
 
-def test_sharded_stream_matches_api_stream_path(sampler, monkeypatch):
+@pytest.mark.usefixtures("stream_path")
+def test_sharded_stream_matches_api_stream_path(sampler):
     """The sharded driver runs the SAME stream engine as the single-device
     fast path (VERDICT r3 item 1): with per-(seed, chain) keys the sharded
     event skeleton must be bit-identical to ``pf.sample_skeleton``'s stream
     path on the same inputs."""
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
     B, n = 16, 80
     x0, v0 = np.zeros((B, DIM)), np.ones((B, DIM))
     r8 = sharded.sample_skeleton_sharded(
@@ -112,10 +112,10 @@ def test_sharded_horizon_mode(sampler):
     assert res.stats["events"] == nv.sum()
 
 
-def test_sharded_horizon_matches_api_stream_path(sampler, monkeypatch):
+@pytest.mark.usefixtures("stream_path")
+def test_sharded_horizon_matches_api_stream_path(sampler):
     """Sharded horizon output equals the single-device stream-path horizon
     skeleton on the valid prefixes (same per-chain keys, same fills)."""
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
     B, T = 16, 5.0
     x0, v0 = np.zeros((B, DIM)), np.ones((B, DIM))
     r8 = sharded.sample_skeleton_sharded(
@@ -198,13 +198,13 @@ def test_checkpoint_resume_continues_deterministically(sampler, tmp_path):
 
 
 @pytest.mark.extended
+@pytest.mark.usefixtures("stream_path")
 def test_checkpoint_resume_mid_stream_bit_exact(sampler, tmp_path,
                                                 monkeypatch):
     """Kill a stream run mid-way (fault injection), resume from the npz,
     and match an uninterrupted run EXACTLY (VERDICT r3 item 8).  Small
     t_cap via PDMPFLUX_DEVICE_BYTES forces multiple fills so the crash
     lands strictly inside the loop."""
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
     # shrink the fill budget so a 300-event run needs several fills
     monkeypatch.setenv("PDMPFLUX_DEVICE_BYTES", "650000")
     B, n = 4, 300
@@ -234,9 +234,9 @@ def test_checkpoint_resume_mid_stream_bit_exact(sampler, tmp_path,
 
 
 @pytest.mark.extended
+@pytest.mark.usefixtures("stream_path")
 def test_checkpoint_resume_horizon_bit_exact(sampler, tmp_path, monkeypatch):
     """Same rehearsal for the time-horizon device-accumulation loop."""
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
     B, T = 4, 40.0
     x0, v0 = np.zeros((B, DIM)), np.ones((B, DIM))
     kw = dict(seed=13, init_capacity=64)
@@ -268,7 +268,7 @@ def test_sharded_stream_fill_has_no_collectives(sampler):
     to HLO with NO cross-device collectives — aggregate events/s is linear
     in devices by construction, because devices never interact during
     simulation.  (Virtual-device wall-clock 'efficiency' on one CPU host
-    measures host-core contention, not ICI scaling — see
+    measures host-core contention, not device scaling — see
     benchmarks/scaling.py.)"""
     from jax.sharding import PartitionSpec as P
 
@@ -283,7 +283,7 @@ def test_sharded_stream_fill_has_no_collectives(sampler):
         jax.sharding.NamedSharding(mesh, P(mesh_lib.CHAIN_AXIS)),
     )
     fill = sharded._make_fill(
-        sampler, t_cap, target, "events", B // 8, DIM, state.x.dtype, None
+        sampler, t_cap, target, "events", B // 8, DIM, state.x.dtype
     )
     spec = P(mesh_lib.CHAIN_AXIS)
     shm = jax.shard_map(
@@ -333,13 +333,13 @@ def test_gspmd_dim_sharding_inserts_collectives():
     assert np.all(np.isfinite(np.asarray(res.skeleton.x)))
 
 
+@pytest.mark.usefixtures("stream_path")
 def test_sharded_checkpoint_resume_bit_exact(sampler, tmp_path, monkeypatch):
     """Crash a SHARDED run mid-fills (fault injection), resume from the
     checkpoint, and match an uninterrupted sharded run exactly — the
     shard_map analogue of test_checkpoint_resume_mid_stream_bit_exact
     (VERDICT r4 item 8; the loaded host state is resharded onto the mesh
     by the fill's in-specs)."""
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
     monkeypatch.setenv("PDMPFLUX_DEVICE_BYTES", "55000")
     B, n = 16, 96
     mesh = mesh_lib.make_mesh(8, 1)

@@ -26,14 +26,16 @@ def test_submodules_import_clean():
         "pdmpflux_tpu.core.types",
         "pdmpflux_tpu.core.bounds",
         "pdmpflux_tpu.core.engine",
+        "pdmpflux_tpu.core.capability",
         "pdmpflux_tpu.models",
         "pdmpflux_tpu.ops.flows",
-        "pdmpflux_tpu.ops.pallas.zigzag_chunk",
-        "pdmpflux_tpu.ops.pallas.driver",
         "pdmpflux_tpu.parallel",
+        "pdmpflux_tpu.parallel.sharded",
+        "pdmpflux_tpu.streaming",
         "pdmpflux_tpu.diagnostics",
         "pdmpflux_tpu.plotting",
         "pdmpflux_tpu.utils.potentials",
+        "pdmpflux_tpu.utils.profiling",
         "pdmpflux_tpu.api",
     ]:
         importlib.import_module(mod)

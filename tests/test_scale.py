@@ -61,7 +61,7 @@ def test_kahan_add_at_scale():
 
 @pytest.mark.extended
 def test_million_event_single_chain_stream():
-    """10^6 events on ONE chain through the f32 stream engine (the TPU
+    """10^6 events on ONE chain through the f32 stream engine (the GPU
     production path): strict monotonicity of committed event times across
     every fill boundary, stationary-rate sanity on the mean inter-event
     time, and bitwise determinism of the final state across a rerun."""

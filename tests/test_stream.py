@@ -1,4 +1,4 @@
-"""Stream-recording runner tests (the TPU fast path, CPU-validated).
+"""Stream-recording runner tests (the GPU default path, CPU-validated).
 
 The dense transition-row stream must be a valid skeleton: monotone
 trajectory times per chain, correct interpolation moments, and an exact
@@ -13,7 +13,6 @@ import pytest
 import pdmpflux_tpu as pf
 from pdmpflux_tpu.core import engine
 from pdmpflux_tpu.core.types import EV_INIT, empty_skeleton
-from pdmpflux_tpu.ops.pallas import driver as pdrv
 from pdmpflux_tpu.parallel.sharded import pooled_moments
 
 DIM, B, TARGET, T_CAP = 4, 128, 300, 1024
@@ -74,20 +73,6 @@ def test_stream_matches_compact_runner_exactly():
         )
 
 
-def test_pallas_stream_interpret():
-    sampler = pf.ZigZag(DIM, lambda x: x)
-    run = jax.jit(pdrv.make_pallas_stream_runner(
-        sampler, T_CAP, TARGET, chunk=16, tile=128, interpret=True
-    ))
-    res = run(*_prep(sampler))
-    assert (np.asarray(res.counts) == TARGET).all()
-    rows = int(np.asarray(res.stream.n_valid)[0])
-    t = np.asarray(res.stream.t)[:, :rows]
-    assert np.all(np.diff(t, axis=1) >= 0)
-    mean, var = pooled_moments(res.stream, sampler, 300)
-    assert np.all(np.abs(np.asarray(var) - 1.0) < 0.35)
-
-
 def test_stream_overflow_reports_partial():
     sampler = pf.ZigZag(DIM, lambda x: x)
     tiny_cap = 64
@@ -106,12 +91,17 @@ def test_stream_host_accumulation_matches_device(monkeypatch):
     """The host-accumulated stream loop (large-payload fallback used when the
     device-side accumulator would exceed HBM, e.g. dim-1000 sticky runs) is
     bit-exact with the device-side accumulation path."""
+    import dataclasses
+
     from pdmpflux_tpu import api
+    from pdmpflux_tpu.core import capability
 
     dim, Bc, n_sk = 6, 16, 50
 
     def run(host):
-        monkeypatch.setenv("PDMPFLUX_STREAM_HOST_ACC", "1" if host else "0")
+        path = dataclasses.replace(capability.CPU_PATH, recorder="stream",
+                                   host_acc=host)
+        monkeypatch.setattr(capability, "resolve", lambda: path)
         zz = pf.ZigZagAD(dim, lambda x: jnp.sum(x * x) / 2)
         return api._sample_skeleton_events_stream(
             zz, n_sk, np.zeros((Bc, dim)), np.ones((Bc, dim)),
@@ -127,21 +117,28 @@ def test_stream_host_accumulation_matches_device(monkeypatch):
     np.testing.assert_allclose(np.asarray(s_host.ar), np.asarray(s_dev.ar))
 
 
+def _use_path(monkeypatch, **fields):
+    import dataclasses
+
+    from pdmpflux_tpu.core import capability
+
+    path = dataclasses.replace(capability.CPU_PATH, **fields)
+    monkeypatch.setattr(capability, "resolve", lambda: path)
+
+
 def test_one_shot_fused_path_matches_general(monkeypatch):
     """The fused one-shot fast path (init + fill + compaction as ONE
-    dispatched program; TPU-only by default, forced here with
-    PDMPFLUX_TEST_ONE_SHOT) is bit-exact with the general loop, including
-    the straggler handoff when the fill is too small for the whole run."""
-    from pdmpflux_tpu import api
-
+    dispatched program; on by default on a GPU) is bit-exact with the
+    general loop, including the straggler handoff when the fill is too
+    small for the whole run."""
     dim, Bc, n_sk = 4, 8, 200
     x0, v0 = np.zeros((Bc, dim)), np.ones((Bc, dim))
     U = lambda x: jnp.sum(x * x) / 2
 
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
+    _use_path(monkeypatch, recorder="stream")
     ref = pf.sample_skeleton(pf.ZigZagAD(dim, U), n_sk, x0, v0, seed=3)
 
-    monkeypatch.setenv("PDMPFLUX_TEST_ONE_SHOT", "1")
+    _use_path(monkeypatch, recorder="stream", one_shot=True)
     one = pf.sample_skeleton(pf.ZigZagAD(dim, U), n_sk, x0, v0, seed=3)
     np.testing.assert_array_equal(np.asarray(ref.n_valid),
                                   np.asarray(one.n_valid))
@@ -167,11 +164,11 @@ def test_one_shot_horizon_matches_general(monkeypatch):
     x0, v0 = np.zeros((Bc, dim)), np.ones((Bc, dim))
     U = lambda x: jnp.sum(x * x) / 2
 
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
+    _use_path(monkeypatch, recorder="stream")
     ref = pf.sample_skeleton(pf.ZigZagAD(dim, U), T, x0, v0, seed=0,
                              init_capacity=512)
 
-    monkeypatch.setenv("PDMPFLUX_TEST_ONE_SHOT", "1")
+    _use_path(monkeypatch, recorder="stream", one_shot=True)
     one = pf.sample_skeleton(pf.ZigZagAD(dim, U), T, x0, v0, seed=0,
                              init_capacity=512)
     strag = pf.sample_skeleton(pf.ZigZagAD(dim, U), T, x0, v0, seed=0,
@@ -210,7 +207,7 @@ def _random_stream(key, B, T, d, p_event=0.7):
 def test_compact_gather_matches_logshift():
     """The index-gather compaction (large-d dispatch) is bit-identical to
     the log-shift formulation on every field."""
-    stream = _random_stream(jax.random.key(0), B=4, T=96, d=engine.GATHER_DIM_THRESHOLD)
+    stream = _random_stream(jax.random.key(0), B=4, T=96, d=128)
     for n_keep in (16, 96, 128):
         a = engine._compact_rows_gather(stream, n_keep)
         # force the log-shift branch by viewing the same data as small-d
@@ -237,7 +234,7 @@ def test_merge_gather_matches_logshift():
     per-chain log-shift merge."""
     import pdmpflux_tpu.core.engine as eng
 
-    d = engine.GATHER_DIM_THRESHOLD
+    d = 128
     target = 64
     key = jax.random.key(1)
     acc_raw = _random_stream(key, B=5, T=target, d=d, p_event=1.0)
@@ -278,7 +275,7 @@ def test_merge_stream_matches_two_step():
     offset shift, large-d gather) is bit-identical to compact-then-merge."""
     import pdmpflux_tpu.core.engine as eng
 
-    d = engine.GATHER_DIM_THRESHOLD
+    d = 128
     target = 96
     acc_raw = _random_stream(jax.random.key(3), B=4, T=target, d=d, p_event=1.0)
     offs = np.array([0, 5, 30, 60], np.int32)
@@ -310,30 +307,52 @@ def test_merge_stream_matches_two_step():
         )
 
 
-def test_pallas_compact_kernel_matches_logshift():
-    """The Pallas shift-compact kernel (interpret mode) reproduces the XLA
-    log-shift compaction bit-for-bit, with and without the fused init row."""
-    import pdmpflux_tpu.core.engine as eng
-    from pdmpflux_tpu.ops.pallas import compact as pc
+def test_forced_stream_horizon_api(stream_path):
+    """The stream-recorder horizon driver (stream fills + device compaction
+    + exact-T terminal) satisfies the same contracts as the scatter path
+    when forced to run on CPU."""
+    dim, T = 3, 20.0
+    sampler = pf.ZigZagAD(dim, pf.utils.potentials.gauss)
+    skel = pf.sample_skeleton(sampler, T, np.zeros(dim), np.ones(dim), seed=3,
+                              init_capacity=64)
+    t = np.asarray(skel.t)
+    assert float(t[-1]) == T
+    assert int(np.asarray(skel.kind)[-1]) == pf.EV_TERMINAL
+    assert np.all(np.diff(t) >= 0)
+    assert np.all(t <= T)
+    # batched
+    skel2 = pf.sample_skeleton(
+        sampler, T, np.zeros((3, dim)), np.ones((3, dim)), seed=4,
+        init_capacity=64,
+    )
+    nv = np.asarray(skel2.n_valid)
+    for b in range(3):
+        tb = np.asarray(skel2.t)[b, : nv[b]]
+        assert float(tb[-1]) == T
+        assert np.all(np.diff(tb) >= 0)
+    # sticky horizon through the same forced path
+    ssampler = pf.StickyZigZagAD(dim, pf.utils.potentials.gauss,
+                                 np.full(dim, 8.0))
+    skel3 = pf.sample_skeleton(
+        ssampler, 15.0, np.full(dim, 0.2), np.ones(dim), seed=5,
+        init_capacity=64,
+    )
+    t3 = np.asarray(skel3.t)
+    assert float(t3[-1]) == 15.0
+    kinds = set(np.asarray(skel3.kind).tolist())
+    assert pf.EV_STICK in kinds or pf.EV_THAW in kinds
 
-    for (Bc, T, d, n_keep) in [(4, 64, 200, 48), (3, 128, 130, 128),
-                               (2, 64, 256, 31)]:
-        stream = _random_stream(jax.random.key(7), B=Bc, T=T, d=d, p_event=0.6)
-        nbits = max(1, int(T - 1).bit_length())
-        masks = pc.shift_masks(stream.kind, nbits)
-        out = pc.compact_field(stream.x, masks, n_keep, interpret=True)
-        orig = eng.GATHER_DIM_THRESHOLD
-        try:
-            eng.GATHER_DIM_THRESHOLD = 1 << 30
-            ref = eng.compact_stream_rows(stream, n_keep)
-        finally:
-            eng.GATHER_DIM_THRESHOLD = orig
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref.x))
-        # fused init row at column 0
-        init_row = jax.random.normal(jax.random.key(8), (Bc, 1, d))
-        out_i = pc.compact_field(stream.x, masks, n_keep, init_row=init_row,
-                                 interpret=True)
-        np.testing.assert_array_equal(np.asarray(out_i[:, 0]),
-                                      np.asarray(init_row[:, 0]))
-        np.testing.assert_array_equal(np.asarray(out_i[:, 1:]),
-                                      np.asarray(ref.x))
+
+def test_forced_stream_events_matches_default(stream_path):
+    """Event-count sampling through the forced stream path agrees with the
+    default scan-compact path in law (same moments band)."""
+    dim = 2
+    s1 = pf.ZigZagAD(dim, pf.utils.potentials.gauss)
+    skel = pf.sample_skeleton(s1, 500, np.zeros((4, dim)), np.ones((4, dim)),
+                              seed=0)
+    assert np.asarray(skel.n_valid).min() == 500
+    from pdmpflux_tpu.parallel.sharded import pooled_moments
+
+    mean, var = pooled_moments(skel, s1, 512)
+    assert np.abs(np.asarray(mean)).max() < 0.3
+    assert np.abs(np.asarray(var) - 1.0).max() < 0.4

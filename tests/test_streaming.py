@@ -7,7 +7,7 @@ model: run the SAME seed through (a) ``sample_streaming_stats`` (fills
 folded and discarded) and (b) ``sample_skeleton(T)`` + equal-time
 interpolation of the materialized skeleton, and require the statistics to
 agree to float tolerance.  Both paths run the XLA stream engine
-(``PDMPFLUX_FORCE_STREAM=1``), whose trajectory is independent of the fill
+(the ``stream_path`` fixture), whose trajectory is independent of the fill
 geometry, so (a) and (b) see identical skeletons.
 """
 
@@ -69,8 +69,8 @@ def _reference_stats(sampler, skel_batch, T, n_samples, n_batches,
     lambda: pf.StickyZigZagAD(3, lambda x: jnp.sum(x * x) / 2,
                               np.full(3, 5.0)),
 ])
-def test_streaming_matches_materialized(monkeypatch, make):
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
+@pytest.mark.usefixtures("stream_path")
+def test_streaming_matches_materialized(make):
     T, n_samples, n_batches, burnin = 160.0, 512, 8, 0.25
     B, d = 4, 3
     x0 = np.full((B, d), 0.4)
@@ -107,10 +107,10 @@ def test_streaming_matches_materialized(monkeypatch, make):
     np.testing.assert_allclose(summ["rhat"], rhat_ref, rtol=1e-6)
 
 
-def test_streaming_summary_convergence(monkeypatch):
+@pytest.mark.usefixtures("stream_path")
+def test_streaming_summary_convergence():
     """A long-enough Gaussian run must gate (rhat ~ 1) with sane moments and
     a positive finite batch-means ESS."""
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
     B, d = 8, 2
     sampler = pf.ZigZagAD(d, lambda x: jnp.sum(x * x) / 2)
     run = streaming.sample_streaming_stats(
@@ -125,12 +125,12 @@ def test_streaming_summary_convergence(monkeypatch):
     assert run.events > 0
 
 
+@pytest.mark.usefixtures("stream_path")
 def test_streaming_checkpoint_resume(monkeypatch, tmp_path):
     """Crash mid-run via fault injection, resume from the checkpoint, and
     require accumulators identical to an uninterrupted run (determinism
     comes from the PRNG keys in the saved state; the anchor and grid
     cursor are recomputed from it)."""
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
     B, d = 4, 3
     kw = dict(n_samples=512, n_batches=8, seed=11, t_cap=64, grid_chunk=128)
     x0, v0 = np.full((B, d), 0.4), np.ones((B, d))
@@ -164,13 +164,13 @@ def test_streaming_checkpoint_resume(monkeypatch, tmp_path):
             n_batches=8, seed=11, t_cap=64)
 
 
-def test_streaming_sharded_matches_unsharded(monkeypatch):
+@pytest.mark.usefixtures("stream_path")
+def test_streaming_sharded_matches_unsharded():
     """The mesh variant runs the fill+fold program per device under
     shard_map; per-chain trajectories are keyed by (seed, chain index), so
     the accumulators must match the unsharded run (up to summation order —
     fill boundaries differ when the clock cap uses the device-local
     minimum cursor)."""
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
     from pdmpflux_tpu.parallel import mesh as mesh_lib
 
     B, d = 16, 3
@@ -195,11 +195,11 @@ def test_streaming_sharded_matches_unsharded(monkeypatch):
             rtol=1e-5, atol=1e-5, err_msg=f)
 
 
-def test_streaming_f32_matches_f64_statistics(monkeypatch):
-    """The TPU production path runs float32; its streaming statistics must
+@pytest.mark.usefixtures("stream_path")
+def test_streaming_f32_matches_f64_statistics():
+    """The GPU production path runs float32; its streaming statistics must
     agree with a float64 run of the same config to float32-grade accuracy
     (grid times, interpolation, and accumulator sums all live in f32)."""
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
     B, d = 8, 3
     kw = dict(n_samples=1024, n_batches=8, seed=13, t_cap=128,
               grid_chunk=256)
@@ -221,12 +221,12 @@ def test_streaming_f32_matches_f64_statistics(monkeypatch):
     assert np.all(np.abs(s32["pooled_mean"] - s64["pooled_mean"]) < 0.5)
 
 
-def test_streaming_early_stop(monkeypatch):
+@pytest.mark.usefixtures("stream_path")
+def test_streaming_early_stop():
     """With stop_when_converged, T is a budget: an easy Gaussian run must
     gate long before the horizon, the partial-window batch-means estimator
     must stay finite, and the run's fills must be well under what the full
     budget would need."""
-    monkeypatch.setenv("PDMPFLUX_FORCE_STREAM", "1")
     B, d = 8, 2
     sampler = pf.ZigZagAD(d, lambda x: jnp.sum(x * x) / 2)
     run = streaming.sample_streaming_stats(
